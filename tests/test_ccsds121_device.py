@@ -56,7 +56,7 @@ def test_codec_device_size_matches_run(tile_caseB):
 
 
 def test_encode_parallel_matches_sequential(rng):
-    """Device-planned parallel encode (chunked, k-state from the TPU plan,
+    """Device-planned parallel encode (chunked, k-state from the device plan,
     bit-spliced) must be byte-identical to the sequential coder."""
     from tpukit.codecs.ccsds121 import encode_plan
 
@@ -137,16 +137,20 @@ def test_pack_device_wide_blocks(rng):
             assert got == ck.encode(x, 16, J, 2), (J, trial)
 
 
-def test_fs_table_pallas_matches_jnp(rng):
-    """The Pallas fs-cost kernel (interpreter mode on CPU) must match the
-    jnp reference for every k, including the padded tail tile."""
-    from tpukit.codecs.ccsds121 import _fs_table_jnp, _fs_table_pallas
-    for J in (8, 16):
-        nb = int(rng.integers(3, 700))
-        coded = jnp.asarray(rng.integers(0, 65536, (nb, J)).astype(np.int32))
-        ref = np.asarray(_fs_table_jnp(coded))
-        got = np.asarray(_fs_table_pallas(coded, interpret=True))
-        np.testing.assert_array_equal(got, ref)
+@pytest.mark.parametrize("J", [8, 16])
+def test_fs_table_matches_numpy_oracle(J):
+    """The split-cost table equals sum(coded >> k) over each block for
+    every k, on one BIP row of a Case B tile (512 pixels x 180 bands) of
+    full-range 16-bit residuals plus all-zero and all-max blocks."""
+    rng = np.random.default_rng(J)
+    coded = rng.integers(0, 1 << 16, (512 * 180 // J, J)).astype(np.int32)
+    coded[0] = 0
+    coded[1] = (1 << 16) - 1
+    expect = np.stack([(coded >> k).sum(axis=1, dtype=np.int64)
+                       for k in range(dev.KMAX + 1)], axis=1)
+    got = np.asarray(dev._fs_table(jnp.asarray(coded)))
+    assert got.shape == (coded.shape[0], dev.KMAX + 1)
+    np.testing.assert_array_equal(got, expect)
 
 
 def test_no_preprocess_size_exact(rng):

@@ -326,3 +326,38 @@ def test_standard_block_adaptive_entropy(rng, spectral_cube):
     import pytest
     with pytest.raises(ValueError):
         CCSDS123Codec(predictor="ls", entropy="block")
+
+
+def test_ls_weights_match_float64_solve():
+    """The transmitted 4.12 weights of the ls predictor equal the
+    quantized float64 least-squares solve within 1 LSB on a 180-band
+    tile (the f32 normal equations run at HIGHEST precision, so a GPU
+    computes them without TF32)."""
+    import jax.numpy as jnp
+    from tpukit.codecs.ccsds123_codec import FEAT_CLAMP, FRAC_BITS, P, \
+        encode_model
+
+    rng = np.random.default_rng(123)
+    B, H, W = 180, 32, 32
+    base = rng.integers(300, 3000, (H, W))
+    gains = 0.5 + np.abs(np.sin(np.linspace(0.2, 5.0, B)))[:, None, None]
+    cube = (base[None] * gains + rng.normal(0, 60, (B, H, W))) \
+        .astype(np.uint16)
+    _, wq = encode_model(jnp.asarray(cube))
+
+    x = cube.astype(np.int64)
+    d = (x - np.concatenate([np.zeros_like(x[:, :1]), x[:, :-1]], axis=1)) \
+        % 65536
+    c = np.where(d >= 32768, d - 65536, d).astype(np.float64)
+    feats = [np.clip(np.concatenate([np.zeros_like(c[:j]), c[:-j]]),
+                     -FEAT_CLAMP, FEAT_CLAMP) for j in range(1, P + 1)]
+    F = np.stack(feats + [np.ones_like(c)], axis=1)      # (B, P+1, H, W)
+    F[:, :, 0] = 0.0
+    T = c.copy()
+    T[:, 0] = 0.0
+    Fm = F.reshape(B, P + 1, H * W)
+    M = np.einsum("bfn,bgn->bfg", Fm, Fm) + 1e-3 * np.eye(P + 1)[None]
+    v = np.einsum("bfn,bn->bf", Fm, T.reshape(B, H * W))
+    w = np.linalg.solve(M, v[..., None])[..., 0]
+    expect = np.clip(np.round(w * (1 << FRAC_BITS)), -32767, 32767)
+    assert np.abs(np.asarray(wq, np.int64) - expect).max() <= 1

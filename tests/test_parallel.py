@@ -430,17 +430,13 @@ def test_ccsds121_codec_mesh_run_matches_host(rng):
     res = codec.run(cube, "int16", RateSpec.of("none", None), mesh=mesh,
                     device_plan_cache=cache)
     assert np.array_equal(res.recon, cube)
-    # the sharded plan computes in the background lane (run() never waits
-    # more than its short poll); settle it, then a second run uses it
-    futs = [v for k, v in cache.items()
-            if isinstance(k, tuple) and k[0] == "ck121_planfut"]
-    assert futs
-    assert futs[0].result(timeout=180) is not None
+    # run() awaits the sharded plan and caches it; a second run reuses it
+    plans = [v for k, v in cache.items()
+             if isinstance(k, tuple) and len(k) == 10]
+    assert len(plans) == 1 and plans[0] is not None
     res = codec.run(cube, "int16", RateSpec.of("none", None), mesh=mesh,
                     device_plan_cache=cache)
     assert np.array_equal(res.recon, cube)
-    # a sharded plan was actually computed and cached
-    assert any(isinstance(k, tuple) and len(k) == 10 for k in cache)
     flat = np.ascontiguousarray(
         np.moveaxis(cube.view(np.uint16), 0, -1)).ravel()
     assert res.bitstream_bytes == len(ck.encode(flat, 16))
@@ -566,3 +562,24 @@ def test_mesh_honest_vs_dedupe_same_outputs(tmp_path, rng):
         outs[name] = stable(tmp_path / f"runs_{name}" / "metrics.csv")
     assert outs["honest"] == outs["dedupe"]
     assert len(outs["honest"]) == 1 + 2 * 3   # header + 2 rates x 3 reps
+
+
+def test_build_mesh_keeps_default_platform():
+    """--mesh takes devices only from the default device's platform."""
+    from tpukit.sweep.runner import _build_mesh
+
+    dflt = jax.config.jax_default_device.platform
+    for spec, n in (("1", 1), ("4", 4), ("2,2", 4), ("4,2", 8)):
+        devs = list(_build_mesh(spec).devices.flat)
+        assert len(devs) == n
+        assert {d.platform for d in devs} == {dflt}
+
+
+def test_build_mesh_raises_when_platform_short():
+    """Too few devices on the default platform is an error, never a
+    silent move to another platform."""
+    from tpukit.sweep.runner import _build_mesh
+
+    have = len(jax.devices(jax.config.jax_default_device.platform))
+    with pytest.raises(ValueError, match=f"needs {have + 1} "):
+        _build_mesh(str(have + 1))

@@ -221,7 +221,7 @@ def test_bounded_rss_scene_sweep(tmp_path, rng):
     bounded RSS. The whole-cube path would need >= cube + recon + f32
     metric temporaries (>= 950 MB); streaming must stay well under."""
     import gc
-    import psutil
+    from tpukit.sweep.proc import rss_bytes
 
     B, H, W = 4, 2000, 10000
     gy = np.arange(H, dtype=np.uint16)[:, None]
@@ -237,9 +237,8 @@ def test_bounded_rss_scene_sweep(tmp_path, rng):
     write_manifest(idx, "caseA", "scene",
                    [{"tile_id": "SCENE", "path": p}])
 
-    proc = psutil.Process()
     gc.collect()
-    rss0 = proc.memory_info().rss
+    rss0 = rss_bytes()
     peak = rss0
 
     import threading
@@ -248,7 +247,7 @@ def test_bounded_rss_scene_sweep(tmp_path, rng):
     def poll():
         nonlocal peak
         while not stop.is_set():
-            peak = max(peak, proc.memory_info().rss)
+            peak = max(peak, rss_bytes())
             stop.wait(0.02)
 
     th = threading.Thread(target=poll, daemon=True)

@@ -4,6 +4,7 @@ metrics.csv + metrics_mean.csv with the reference schema."""
 
 import csv
 import json
+import math
 
 import numpy as np
 import pytest
@@ -397,3 +398,26 @@ def test_honest_reps_all_codecs(tmp_path, rng, codec_name, copts, rk,
     assert a["max_abs_err"] == b["max_abs_err"]
     # fresh per-rep codec walls: two independent perf_counter spans
     assert a["t_comp_s"] != b["t_comp_s"], (codec_name, a["t_comp_s"])
+
+
+def test_metrics_csv_stdlib_reader_round_trip(tmp_path):
+    """read_metrics_rows/parse_number (pandas-free) invert the writer's
+    decimal-comma formatting, including inf and empty cells."""
+    from tpukit.sweep.csvio import (parse_number, read_metrics_rows,
+                                    write_metrics_csv)
+
+    rows = [{"case": "caseA", "codec": "j2k", "tile_id": "HC",
+             "rate_value": 20, "bitstream_bytes": 12345,
+             "psnr_global": 51.123456, "ssim_global": 0.999871,
+             "max_abs_err": 7, "lossless": 0},
+            {"case": "caseA", "codec": "j2k", "tile_id": "LC",
+             "rate_value": 100, "bitstream_bytes": 999,
+             "psnr_global": float("inf"), "ssim_global": 1.0,
+             "max_abs_err": 0, "lossless": 1}]
+    p = write_metrics_csv(tmp_path / "metrics.csv", rows)
+    got = read_metrics_rows(p)
+    assert [r["tile_id"] for r in got] == ["HC", "LC"]
+    assert got[0]["bitstream_bytes"] == "12345"
+    assert parse_number(got[0]["psnr_global"]) == 51.123456
+    assert parse_number(got[1]["psnr_global"]) == float("inf")
+    assert math.isnan(parse_number(got[0]["sam_deg"]))

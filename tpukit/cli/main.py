@@ -74,7 +74,7 @@ def run_codec_main(argv=None):
                     help="ccsds123: 'standard' emits CCSDS 123.0-B "
                          "conformant streams (sample-adaptive predictor + "
                          "GPO2, Blue Book header); 'ls' (default) keeps "
-                         "the TPU-first transmitted-weights design")
+                         "the device-first transmitted-weights design")
     ap.add_argument("--pred-bands", dest="pred_bands", type=int,
                     default=None, metavar="P",
                     help="ccsds123 standard: previous bands used by the "
@@ -110,14 +110,14 @@ def run_codec_main(argv=None):
                          "over the residual sequence)")
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="capture a jax.profiler trace of the sweep into DIR "
-                         "(view with TensorBoard / xprof; the TPU analog of "
-                         "the reference's wall-clock/psutil instrumentation, "
-                         "SURVEY §5.1)")
+                         "(view with TensorBoard / xprof; the device analog "
+                         "of the reference's wall-clock/psutil "
+                         "instrumentation, SURVEY §5.1)")
     ap.add_argument("--mesh", metavar="DP[,SP]", default=None,
                     help="shard the (rates x reps) metric ladder over a "
                          "device mesh: DP-way over lanes, SP-way over the "
-                         "band axis (falls back to the virtual CPU mesh "
-                         "when fewer real devices exist)")
+                         "band axis; needs DP*SP devices of the default "
+                         "device's platform")
     ap.add_argument("--stream-rows", type=int, default=None,
                     help="scene streaming: process each item in N-row "
                          "strips with bounded host memory (strip-exact "
@@ -413,9 +413,9 @@ def tile_complexity_main(argv=None):
 
 def doctor_main(argv=None):
     """Deployment health check: backend/devices, native build, compile
-    caches, kernel map-count headroom, codec smoke round-trips. Exits
+    cache, kernel map-count headroom, codec smoke round-trips. Exits
     nonzero if any REQUIRED check fails (accelerator presence is
-    reported, not required — every path has a CPU fallback)."""
+    reported, not required: the CPU backend runs every path, for tests)."""
     ap = argparse.ArgumentParser(
         description="tpukit environment and install health check")
     ap.add_argument("--smoke", action="store_true",
@@ -442,7 +442,7 @@ def doctor_main(argv=None):
             f"{[str(d) for d in devs[:4]]}")
         row("accelerator", backend not in ("cpu",),
             "accelerator attached" if backend != "cpu"
-            else "CPU only (TPU paths fall back; fine for tests)",
+            else "CPU only (fine for tests; device numbers need a GPU)",
             required=False)
     except Exception as e:
         row("jax backend", False, f"import/init failed: {e}")
@@ -456,13 +456,10 @@ def doctor_main(argv=None):
     except Exception as e:
         row("native library", False, f"build/load failed: {e}")
 
-    from tpukit.hostinfo import cpu_feature_fingerprint
-    fp = cpu_feature_fingerprint()
-    cache = os.path.join(os.path.expanduser("~"), ".cache", "tpukit",
-                         "jax", fp)
+    from tpukit.hostinfo import compile_cache_dir
+    cache = compile_cache_dir()
     n = len(os.listdir(cache)) if os.path.isdir(cache) else 0
-    row("compile cache", True,
-        f"{cache} ({n} entries, fingerprint {fp})", required=False)
+    row("compile cache", True, f"{cache} ({n} entries)", required=False)
 
     try:
         with open("/proc/sys/vm/max_map_count") as f:
@@ -515,30 +512,19 @@ COMMANDS = {
 
 
 def _init_jax_compile_cache():
-    """Persist XLA compiles across CLI invocations.
-
-    Every `python -m tpukit` run is a fresh process; without a persistent
-    cache each one re-pays every jit compile (tens of seconds for the
-    sweep ladders). Default cache dir: ~/.cache/tpukit/jax, overridable
-    via TPUKIT_JAX_CACHE (set to "0" to disable). A cache dir already
-    configured by the embedding process (e.g. bench.py) is left alone."""
+    """Persist XLA compiles across CLI invocations (every `python -m
+    tpukit` run is a fresh process): JAX_COMPILATION_CACHE_DIR when set,
+    else <checkout>/.jax_cache. Otherwise a cache dir already configured
+    by the embedding process is left alone."""
     import os
-    try:
-        import jax
-        from tpukit.hostinfo import ensure_cpu_platform
-        ensure_cpu_platform()
-        if getattr(jax.config, "jax_compilation_cache_dir", None):
-            return
-        d = os.environ.get("TPUKIT_JAX_CACHE")
-        if d == "0":
-            return
-        if not d:
-            d = os.path.join(os.path.expanduser("~"), ".cache", "tpukit",
-                             "jax")
-        from tpukit.hostinfo import configure_jax_compile_cache
-        configure_jax_compile_cache(d)
-    except Exception:
-        pass
+
+    import jax
+    from tpukit.hostinfo import configure_jax_compile_cache, \
+        ensure_cpu_platform
+    ensure_cpu_platform()
+    if (os.environ.get("JAX_COMPILATION_CACHE_DIR")
+            or not jax.config.jax_compilation_cache_dir):
+        configure_jax_compile_cache()
 
 
 def main(argv=None):

@@ -252,7 +252,7 @@ def ccsds123_main(argv=None):
                         default="ls",
                         help="'standard' emits CCSDS 123.0-B conformant "
                              "streams (sample-adaptive predictor + GPO2); "
-                             "'ls' (default) keeps the TPU-first "
+                             "'ls' (default) keeps the device-first "
                              "transmitted-weights design")
         _add_tpl_args(ap,
                       'e.g. "enc123 -i {in} -o {out} -w {w} -h {h} '

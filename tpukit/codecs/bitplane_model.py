@@ -18,7 +18,7 @@ needs NO per-plane loop — it is a pure O(n) reduction:
 
   bytes = 1 + ceil((gates+members+signs+refine) / 8)
 
-This is the TPU-native "quantized-coefficient model" for the embedded
+This is the device-side "quantized-coefficient model" for the embedded
 backend — CCSDS-122's only entropy stage (its -r bpp surface needs
 truncatable streams) and J2K's fallback when the zigzag overflows the
 Rice backend (j2k_codec.wenc_size_bytes): rate ladders and rate-target

@@ -24,7 +24,7 @@ wenc backend (wavelet_common: Rice / run-length / Rice-split / embedded,
 min-selected per band over exact device size models) — measured 3-6%
 smaller lossless streams than the embedded coder alone.
 
-TPU-first execution: the rate ladder never moves coefficient planes over
+Device-resident execution: the rate ladder never moves coefficient planes over
 the link. `bitplane_model.bpc_truncated_decode` reproduces the native
 coder's truncated decode (atomic significance units, bit-granular
 refinement, midpoint fill) and its exact byte count on device, so

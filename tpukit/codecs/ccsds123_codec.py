@@ -1,11 +1,11 @@
 # -*- coding: utf-8 -*-
-"""CCSDS-123-class hyperspectral lossless codec, TPU-first.
+"""CCSDS-123-class hyperspectral lossless codec, device-first.
 
 The reference wraps the CNES CCSDS-123 reference binaries per 512² tile
 (reference tools/codecs/ccsds123/ccsds123_wrap.py:129-153, :212-276;
 lossless only, :8). Those binaries are user-supplied and the standard's
 sample-adaptive LMS weight update is serial in raster order — a hostile
-fit for TPU. tpukit re-designs the predictor around closed-form adaptation
+fit for a parallel accelerator. tpukit re-designs the predictor around closed-form adaptation
 instead of per-sample LMS, keeping the same structure (spatial + adaptive
 inter-band prediction + mapped residuals + block-adaptive Golomb coding):
 
@@ -14,7 +14,7 @@ inter-band prediction + mapped residuals + block-adaptive Golomb coding):
      not a raster-order recurrence;
   2. spectral stage: per-band least-squares weights over the 3 previous
      bands' difference planes (+bias), solved on device as tiny batched
-     normal equations (MXU), quantized to 4.12 fixed point and
+     normal equations (f32 at HIGHEST precision), quantized to 4.12 fixed point and
      *transmitted* (720 bands ≈ 1.4 kB) — prediction is pure int32
      arithmetic, so encoder and decoder agree exactly by construction;
   3. residuals zigzag-mapped on the ring to uint16 and coded with the
@@ -108,8 +108,12 @@ def encode_model(xu: jax.Array) -> Tuple[jax.Array, jax.Array]:
     T = c.astype(jnp.float32) * mask[None]
     Fm = F.reshape(B, P + 1, H * W)
     Tm = T.reshape(B, H * W)
-    M = jnp.einsum("bfn,bgn->bfg", Fm, Fm) + 1e-3 * jnp.eye(P + 1)[None]
-    v = jnp.einsum("bfn,bn->bf", Fm, Tm)
+    # HIGHEST: a GPU would otherwise run these f32 products in TF32, and
+    # the quantized weights are transmitted in the stream
+    hi = jax.lax.Precision.HIGHEST
+    M = (jnp.einsum("bfn,bgn->bfg", Fm, Fm, precision=hi)
+         + 1e-3 * jnp.eye(P + 1)[None])
+    v = jnp.einsum("bfn,bn->bf", Fm, Tm, precision=hi)
     w = jnp.linalg.solve(M, v[..., None])[..., 0]   # (B, 4)
     wq = jnp.clip(jnp.round(w * (1 << FRAC_BITS)), -32767, 32767).astype(jnp.int32)
 
@@ -148,7 +152,7 @@ def decode_model(mapped: jax.Array, wq: jax.Array) -> jax.Array:
 
 
 class CCSDS123Codec(Codec):
-    """predictor='ls' (default) is tpukit's TPU-first redesign: closed-form
+    """predictor='ls' (default) is tpukit's device-first redesign: closed-form
     least-squares band weights transmitted in the stream, device band scan
     decode. predictor='standard' codes CCSDS 123.0-B conformant streams —
     the Blue Book's sample-adaptive predictor (local sums + per-sample LMS

@@ -4,7 +4,7 @@ predictor + sample-adaptive GPO2 coder (native/src/ccsds123std.cpp).
 
 This is the standard-conformant path the reference exercises through the
 CNES enc123/dec123 binaries (reference tools/codecs/ccsds123/
-ccsds123_wrap.py:8, :111-112); tpukit's TPU-first LS predictor
+ccsds123_wrap.py:8, :111-112); tpukit's device-first LS predictor
 (ccsds123_codec.encode_model) remains the default. The per-sample weight
 update is serial in raster order, so this path runs in-process C++ like
 tpukit's other bit-exact sequential coders.

@@ -22,7 +22,7 @@ testing:
     cli/wrappers.py).
 
 Each subprocess is measured with :func:`tpukit.sweep.proc.run_and_measure`
-(deterministic env pinning + psutil tree peak — the reference's L1 layer,
+(deterministic env pinning + process-tree peak — the reference's L1 layer,
 proc_metrics.py:8-113).
 """
 

@@ -1,7 +1,7 @@
 # -*- coding: utf-8 -*-
 """2-D multilevel discrete wavelet transforms (lifting) on device.
 
-TPU-native building block for the transform codecs. The reference obtains
+Device building block for the transform codecs. The reference obtains
 its DWTs from inside external binaries (OpenJPEG's 5/3 & 9/7 for JPEG 2000
 via GDAL — reference tools/codecs/j2k/j2k_wrap.py:79-105 — and the BPE's
 three-level 9/7 for CCSDS-122 — tools/codecs/ccsds122/ccsds122_wrap.py:110-133).

@@ -4,7 +4,7 @@
 Replicates the *non-standard* definitions of the reference harness —
 windowless global SSIM (reference tools/run_codec.py:67-80), data-range-aware
 PSNR with the 255/4095/65535/8191 bit-packing heuristic (:86-117), masked
-per-band and global aggregation (:240-304) — but computes them the TPU way:
+per-band and global aggregation (:240-304) — but computes them the device way:
 
   * one fused device pass over the HBM-resident ``(B, H, W)`` cube pair
     produces every per-band moment needed for all metrics at once;

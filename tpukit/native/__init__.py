@@ -3,10 +3,11 @@
 
 The reference delegates every compression kernel to *external* native
 binaries over process+file boundaries (reference tools/codecs/*_wrap.py).
-tpukit keeps the compute-heavy modeling stages on TPU and runs only the
-inherently serial, bit-exact stages (variable-length bitstream packing,
-sequential context-adaptive coding) in-process in C++, compiled on first
-use and called through ctypes with zero-copy numpy buffers.
+tpukit keeps the compute-heavy modeling stages on the accelerator and
+runs only the inherently serial, bit-exact stages (variable-length
+bitstream packing, sequential context-adaptive coding) in-process in C++,
+compiled on first use and called through ctypes with zero-copy numpy
+buffers.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ def build_library(force: bool = False) -> Path:
     """Compile tpukit/native/src/*.cpp into a cached shared library."""
     _BUILD_DIR.mkdir(exist_ok=True)
     digest = _source_digest()
-    lib_path = _BUILD_DIR / f"libtpukit_{digest}.so"
+    lib_path = _BUILD_DIR / f"tpukit_native_{digest}.so"
     if lib_path.exists() and not force:
         return lib_path
     sources = [str(p) for p in sorted(_SRC_DIR.glob("*.cpp"))]
@@ -54,7 +55,7 @@ def build_library(force: bool = False) -> Path:
         raise RuntimeError(f"native build failed:\n{proc.stderr}")
     os.replace(str(lib_path) + ".tmp", lib_path)
     # prune stale builds
-    for old in _BUILD_DIR.glob("libtpukit_*.so"):
+    for old in _BUILD_DIR.glob("tpukit_native_*.so"):
         if old != lib_path:
             try:
                 old.unlink()

@@ -3,7 +3,7 @@
 
 The reference's CCSDS-121 path shells out to the ``aec`` CLI built on libaec
 (reference tools/codecs/ccsds121/ccsds121_wrap.py:129-136, README.md:86).
-tpukit's own encoder/decoder (tpukit/native/src/ccsds121.cpp + the TPU
+tpukit's own encoder/decoder (tpukit/native/src/ccsds121.cpp + the device
 path in tpukit/codecs/ccsds121.py) is validated byte-for-byte against this
 binding in tests and raced against it in benchmarks. It is NOT used on the
 production encode/decode path.

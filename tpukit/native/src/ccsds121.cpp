@@ -9,7 +9,7 @@
 // Supported here: unsigned samples, 4 < bits <= 16 (and bits<=8 with 3-bit
 // IDs), PREPROCESS on/off, any block size J in {8,16,32,64}, any RSI.
 // This C++ path is the host-side packer/decoder; the per-block option
-// modeling also runs on TPU (tpukit/codecs/ccsds121.py) and must agree
+// modeling also runs on device (tpukit/codecs/ccsds121.py) and must agree
 // bit-for-bit with the encoder below.
 
 #include <cstdint>
@@ -477,7 +477,7 @@ extern "C" int64_t ck121_quant_encode(const float* coefs,
 // Encode one chunk of a device-planned parallel encode: the chunk must
 // start at a reference-sample-interval boundary (the predictor restarts
 // there, so the only inter-chunk coupling is the split-k search state,
-// which the TPU-side plan supplies — tpukit/codecs/ccsds121.py
+// which the device-side plan supplies — tpukit/codecs/ccsds121.py
 // encode_plan). Returns the exact BIT length.
 extern "C" int64_t ck121_encode_seg(const uint16_t* in, int64_t n, int bits,
                                     int block_size, int rsi, int flags,

@@ -3,7 +3,7 @@
 // linear prediction with per-sample LMS updates) and sample-adaptive
 // GPO2 entropy coder, with the Blue Book §5.3 header bit layout.
 //
-// This is the standard-conformant companion to tpukit's TPU-first
+// This is the standard-conformant companion to tpukit's device-first
 // CCSDS-123-class LS predictor (codecs/ccsds123_codec.py): the reference
 // pipeline wraps the CNES enc123/dec123 binaries implementing this
 // algorithm (reference tools/codecs/ccsds123/ccsds123_wrap.py:8,

@@ -4,7 +4,7 @@
 The reference has no distributed execution at all — its parallel structure
 is embarrassingly-parallel loop nests run serially over subprocesses
 (SURVEY §2.3; reference tools/run_codec.py:448-563 and the per-tile loops
-in the wrappers). tpukit scales the same structure the TPU way:
+in the wrappers). tpukit scales the same structure over a device mesh:
 
   * mesh axes ("dp", "sp"): data-parallel over independent tiles, and
     spectral-parallel over the band axis for the metric reductions (the
@@ -274,7 +274,7 @@ def run_sharded_batch(tiles: np.ndarray, recons: np.ndarray,
 
     Host arrays are `device_put` directly onto the mesh sharding — never
     committed to the default backend first (the mesh may live on a
-    different backend, e.g. the virtual-CPU mesh under a TPU default).
+    different backend, e.g. the virtual-CPU mesh under a GPU default).
     """
     mesh = mesh or make_mesh()
     tile_sh = NamedSharding(mesh, P("dp", "sp", None, None))

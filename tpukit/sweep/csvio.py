@@ -33,7 +33,7 @@ BASE_COLS = [
     "t_comp_s", "t_dec_s", "t_wrap_s", "mem_comp_peak_mb", "mem_dec_peak_mb",
     "link_mbps", "link_eff", "t_link_tile_s", "t_e2e_tile_s",
     "mem_comp_peak_bytes", "mem_dec_peak_bytes",
-    # device-memory observability (TPU-native analog of the reference's
+    # device-memory observability (device analog of the reference's
     # peak-RAM axis, proc_metrics.py:93-106): accelerator HBM peak at
     # the end of the tile's device pass, from device.memory_stats().
     # Empty on backends that expose no stats (e.g. CPU).
@@ -237,3 +237,15 @@ def read_csv_smart(path):
         return pd.read_csv(path, sep=None, engine="python", decimal=",")
     except Exception:
         return pd.read_csv(path, sep=None, engine="python", decimal=".")
+
+
+def read_metrics_rows(path) -> List[Dict[str, str]]:
+    """Stdlib (pandas-free) reader: one dict of raw cell strings per row
+    of a metrics.csv / metrics_mean.csv; see :func:`parse_number`."""
+    with Path(path).open(newline="", encoding="utf-8") as f:
+        return list(csv.DictReader(f, delimiter=";"))
+
+
+def parse_number(cell: str, decimal: str = ",") -> float:
+    """Inverse of :func:`fmt_number` for one cell (empty → NaN)."""
+    return float(cell.replace(decimal, ".")) if cell else float("nan")

@@ -7,10 +7,13 @@ tools/common/proc_metrics.py:8-113 splits into two tools here:
   * ``MemorySampler`` — a daemon-thread RSS/USS sampler bracketing an
     in-process phase (the reference uses the same device for its PNG
     wrapper, tools/codecs/png/png_wrap.py:38-73);
-  * ``run_and_measure`` — subprocess launcher with psutil tree polling and
-    the deterministic single-threaded environment pinning
+  * ``run_and_measure`` — subprocess launcher with process-tree polling
+    and the deterministic single-threaded environment pinning
     (proc_metrics.py:51-62), retained for the reference-shell compatibility
     wrappers and external tooling.
+
+Memory is read from /proc (VmRSS in ``status``, Private_* in
+``smaps_rollup`` for USS), so no third-party package is needed.
 """
 
 from __future__ import annotations
@@ -22,10 +25,55 @@ import time
 from contextlib import contextmanager
 from typing import Dict, Iterable, List, Optional, Tuple
 
-try:
-    import psutil
-except Exception:  # pragma: no cover
-    psutil = None
+
+def rss_bytes(pid: int | str = "self") -> int:
+    """Resident set size of ``pid`` (VmRSS), 0 when unreadable."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+    except (OSError, ValueError, IndexError):
+        pass
+    return 0
+
+
+def uss_bytes(pid: int | str = "self") -> int:
+    """Unique set size of ``pid`` (private clean + dirty pages), falling
+    back to RSS when smaps_rollup is unavailable."""
+    try:
+        total = 0
+        with open(f"/proc/{pid}/smaps_rollup") as f:
+            for line in f:
+                if line.startswith(("Private_Clean:", "Private_Dirty:")):
+                    total += int(line.split()[1]) * 1024
+        return total
+    except (OSError, ValueError, IndexError):
+        return rss_bytes(pid)
+
+
+def _tree_pids(root: int) -> List[int]:
+    """``root`` and all its live descendants, from /proc/<pid>/stat."""
+    children: Dict[int, List[int]] = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+            # the field after the parenthesised command is the state,
+            # then the parent pid
+            ppid = int(stat[stat.rindex(")") + 2:].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        children.setdefault(ppid, []).append(int(d))
+    out, todo = [], [root]
+    while todo:
+        pid = todo.pop()
+        out.append(pid)
+        todo.extend(children.get(pid, ()))
+    return out
+
 
 # Module-level phase tag + registry of live samplers. Codecs bracket their
 # encode/decode sections with ``mem_phase("comp"/"dec")`` so a surrounding
@@ -83,19 +131,9 @@ class MemorySampler:
         self._phase_peaks: Dict[str, int] = {}
         self._stop = False
         self._thr: Optional[threading.Thread] = None
-        self._proc = psutil.Process(os.getpid()) if psutil else None
 
     def _mem(self) -> int:
-        if self._proc is None:
-            return 0
-        try:
-            if self.use_uss:
-                fi = getattr(self._proc, "memory_full_info", None)
-                if fi is not None:
-                    return getattr(fi(), "uss", self._proc.memory_info().rss)
-            return self._proc.memory_info().rss
-        except Exception:
-            return 0
+        return uss_bytes() if self.use_uss else rss_bytes()
 
     def sample_now(self):
         m = self._mem()
@@ -113,11 +151,10 @@ class MemorySampler:
             time.sleep(self.interval_s)
 
     def __enter__(self):
-        if self._proc is not None:
-            self.sample_now()
-            _ACTIVE.append(self)
-            self._thr = threading.Thread(target=self._loop, daemon=True)
-            self._thr.start()
+        self.sample_now()
+        _ACTIVE.append(self)
+        self._thr = threading.Thread(target=self._loop, daemon=True)
+        self._thr.start()
         return self
 
     def __exit__(self, *exc):
@@ -147,6 +184,9 @@ def run_and_measure(cmd: Iterable[str] | str, cwd: Optional[str] = None,
     env_final = os.environ.copy()
     for k, v in ENV_DEFAULTS.items():
         env_final.setdefault(k, v)
+    # a child never opens the accelerator the parent holds: a JAX process
+    # reserves most of the card's memory, so a second one would fail
+    env_final["JAX_PLATFORMS"] = "cpu"
     if env:
         env_final.update(env)
 
@@ -154,32 +194,9 @@ def run_and_measure(cmd: Iterable[str] | str, cwd: Optional[str] = None,
                          stdout=subprocess.PIPE, stderr=subprocess.PIPE)
     start = time.perf_counter()
     peak = 0
-    proc = None
-    if psutil is not None:
-        try:
-            proc = psutil.Process(p.pid)
-        except Exception:
-            proc = None
-
-    def _mem_of(pr) -> int:
-        if use_uss:
-            fi = getattr(pr, "memory_full_info", None)
-            if fi is not None:
-                try:
-                    return getattr(fi(), "uss", pr.memory_info().rss)
-                except Exception:
-                    return pr.memory_info().rss
-        return pr.memory_info().rss
-
+    mem_of = uss_bytes if use_uss else rss_bytes
     while p.poll() is None:
-        if proc is not None:
-            try:
-                mem = _mem_of(proc)
-                for c in proc.children(recursive=True):
-                    mem += _mem_of(c)
-                peak = max(peak, mem)
-            except Exception:
-                pass
+        peak = max(peak, sum(mem_of(pid) for pid in _tree_pids(p.pid)))
         time.sleep(poll_interval)
 
     out_b, err_b = p.communicate()
